@@ -5,7 +5,7 @@ Compares LOBPCG iteration counts at dielectric-sphere contrast for:
   b) σ-shift with the matched fd_sigma + cg defl
   c) project-cg: per-iteration true-L PCG projection, no shift
 
-Run on CPU (small n) or TPU. Usage:
+Run on the CPU (small n) or the GPU. Usage:
     python benchmarks/exp_dielectric_config.py [--n 4] [--p 2] [--eps 13]
 """
 

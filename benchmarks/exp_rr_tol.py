@@ -1,8 +1,7 @@
 """Measure LOBPCG iteration/accuracy impact of a LOOSER Rayleigh-Ritz
 Jacobi-eigh stop (jacobi_eigh rel_tol / lobpcg rr_tol).
 
-The per-iteration RR eigh runs to machine precision (~9 of the
-~12.6 ms spectral iteration on TPU), but mid-iteration RR errors
+The per-iteration RR eigh runs to machine precision, but mid-iteration RR errors
 self-correct through the next iteration's re-whitening — the final
 quadratic-convergence sweeps may be skippable. This measures iters +
 refined accuracy on CPU for both engines at rel_tol in

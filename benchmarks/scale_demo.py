@@ -1,23 +1,21 @@
-"""Near-HBM-limit scale demonstration (round-4 verdict item 4; SURVEY.md
-§2.3 row 1 — domain decomposition is needed exactly when ONE k-point's
-problem exceeds a single chip's HBM).
+"""Device-memory scale demonstration (SURVEY.md §2.3 row 1 — domain
+decomposition is needed exactly when ONE k-point's problem exceeds a
+single card's memory).
 
 Two demonstrations:
 
-1. ``--part single`` (run on the real TPU): the largest headline-config
-   (p=4) spectral-engine problems that fit 16 GB — driven through
-   bench.py separately (``python bench.py --n 12`` / ``--n 14``); this
-   part just prints the footprint model so the chosen sizes are
-   explained.
+1. ``--part single``: the footprint model of the headline-config (p=4)
+   spectral engine by grid size, so the largest single-card sizes can
+   be chosen and then driven through bench.py (``python bench.py --n
+   12``).
 
-2. ``--part dd`` (runs on 8 virtual CPU devices): a field-engine FCC
-   Maxwell eigensolve at n=40 p=4 (12.3 M complex dofs) whose
-   single-device LOBPCG program footprint EXCEEDS one v5e chip's 16 GB
-   HBM, compiled both unsharded (footprint evidence) and dof-axis
-   sharded over an 8-device mesh (per-device footprint ~1/8 — the
-   shape DOES fit per chip under domain decomposition), plus one
-   executed sharded apply at full shape. Numerical parity of the
-   DD eigensolve is gated separately by
+2. ``--part dd``: a field-engine FCC Maxwell eigensolve at n=40 p=4
+   (12.3 M complex dofs), compiled unsharded (the one-device program
+   footprint) and dof-axis sharded over a 4-card mesh (the per-device
+   share), plus one executed sharded apply at full shape. Needs four
+   devices: four GPUs, or 4 virtual CPU devices under
+   ``JAX_PLATFORMS=cpu``.
+   Numerical parity of the DD eigensolve is gated separately by
    tests/test_domain_decomposition.py::test_sharded_eigensolve_matches.
 
 Prints one JSON line per measurement.
@@ -52,13 +50,18 @@ def main():
                 "metric": f"spectral-engine block-array GiB (n={n} p=4)",
                 "value": round(per, 2), "unit": "GiB per (B,D,D) array",
                 "est_program_GiB": round(6 * per, 1)}))
-        print("run: python bench.py --n 12  (and --n 14) on the TPU")
+        print("run: python bench.py --n 12  (and larger) on the card")
         return 0
 
+    nd = 4
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "")
+        + f" --xla_force_host_platform_device_count={nd}")
     import jax
-    jax.config.update("jax_platforms", "cpu")
-    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                               + " --xla_force_host_platform_device_count=8")
+    if len(jax.devices()) < nd:
+        raise SystemExit(f"--part dd needs {nd} devices, found "
+                         f"{len(jax.devices())}: run on four GPUs, or on "
+                         f"the CPU with JAX_PLATFORMS=cpu")
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -88,6 +91,11 @@ def main():
     Xa = jax.ShapeDtypeStruct(shp, jnp.float32)
     ka = jax.ShapeDtypeStruct((3,), jnp.float32)
 
+    limit = (jax.devices()[0].memory_stats() or {}).get("bytes_limit")
+
+    def fits(nbytes):
+        return bool(nbytes < limit) if limit else None
+
     def prog_bytes(jfn, *a):
         c = jfn.lower(*a).compile()
         ma = c.memory_analysis()
@@ -101,24 +109,25 @@ def main():
                   f"1 device (FCC n={n} p={p}, {ndofs} dofs, m={m})",
         "value": round(single / 2 ** 30, 2), "unit": "GiB",
         "vec_MiB": round(vec_mb, 1),
-        "fits_v5e_16G": bool(single < 15.75 * 2 ** 30)}))
+        "device": jax.devices()[0].device_kind,
+        "device_bytes_limit": limit, "fits_one_device": fits(single)}))
 
-    # Dof-axis domain decomposition over 8 devices: per-device share.
-    devs = jax.devices()[:8]
+    # Dof-axis domain decomposition over nd devices: per-device share.
+    devs = jax.devices()[:nd]
     mesh = Mesh(np.asarray(devs), ("x",))
     shard = NamedSharding(mesh, P(None, None, None, "x", None, None))
     jfn = jax.jit(solve_fn, in_shardings=(shard, None))
     total = prog_bytes(jfn, Xa, ka)
-    per_dev = total / 8
+    per_dev = total / nd
     print(json.dumps({
-        "metric": f"same program, dof-axis sharded over 8 devices "
+        "metric": f"same program, dof-axis sharded over {nd} devices "
                   f"(per-device share)",
         "value": round(per_dev / 2 ** 30, 2), "unit": "GiB/device",
         "total_GiB": round(total / 2 ** 30, 2),
-        "fits_v5e_16G_per_device": bool(per_dev < 15.75 * 2 ** 30)}))
+        "fits_per_device": fits(per_dev)}))
 
     # Execute ONE dof-sharded apply at the full shape (proves the DD
-    # path runs, not just compiles, at the over-HBM problem size).
+    # path runs, not just compiles, at the over-one-device size).
     rng = np.random.default_rng(0)
     u = jnp.asarray(rng.standard_normal((2, 1) + sp.field_shape)
                     .astype(np.float32))

@@ -1,4 +1,4 @@
-"""bravais_tpu — a TPU-native Bloch / band-structure framework in JAX.
+"""bravais_tpu — a Bloch / band-structure framework in JAX for the GPU.
 
 Built from scratch with the capabilities of ``mlstowell/mfem-bravais``
 (MFEM + hypre C++/MPI band-structure miniapps; see SURVEY.md for the
@@ -13,7 +13,7 @@ lattices   : the 14 3D + 5 2D Bravais lattices, Setyawan–Curtarolo symmetry
 meshing    : periodic structured grids on the primitive cell  (§2.1 #2)
 spaces     : tensor-product H1 and Nédélec FE spaces          (App. C.1)
 operators  : matrix-free Bloch Helmholtz / Maxwell curl-curl applies
-             (einsum + Pallas paths)                          (§2.1 #3, #4, App. B)
+             (sum-factorized einsum applies)   (§2.1 #3, #4, App. B)
 eigen      : complex LOBPCG + preconditioners (Jacobi/Chebyshev/GMG/
              auxiliary-space)                                 (§2.1 #5, App. C.2–C.4)
 bands      : k-path sweeps (vmap + shard_map), band tables, checkpoint/resume
@@ -26,11 +26,12 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# TPU MXUs multiply f32 as bf16 by default ('default' matmul precision) —
-# a ~1e-2 relative error that destroys Gram matrices, orthogonalization
-# and quadrature contractions (verified: LOBPCG returns garbage on TPU
-# without this). An eigensolver framework wants true-f32 contractions;
-# hot kernels that can tolerate less pick their own precision explicitly.
+# At the 'default' matmul precision the GPU may run f32 products in
+# TF32 (~3 decimal digits) — an error that destroys Gram matrices,
+# orthogonalization and quadrature contractions. An eigensolver
+# framework wants true-f32 contractions, so 'highest' keeps them out of
+# TF32; hot kernels that can tolerate less pick their own precision
+# explicitly.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from bravais_tpu.lattices import Lattice, make_lattice, kpath  # noqa: F401,E402

@@ -59,7 +59,7 @@ class RunConfig:
     #: residual 0.1, SQR TM rods at 0.23 — while GMG converges both in
     #: 7-13 iters/k), Jacobi elsewhere. Identity-affecting by design.
     precond: str = "auto"
-    # precision: "f32" (TPU) | "f64" (CPU oracle runs)
+    # precision: "f32" (complex64) | "f64" (complex128, any backend)
     precision: str = "f32"
     # execution
     mode: str = "warm"               # "warm" | "batched" | "warm-chain"
@@ -88,7 +88,7 @@ class RunConfig:
     #: spectral engine solves the quasi-periodic twin discretization
     #: whose eigenvalues differ from the pointwise-ik path at
     #: discretization-error level, so a resume across engines would
-    #: silently mix two discretizations in one band table (ADVICE r2 #2).
+    #: silently mix two discretizations in one band table.
     _EXECUTION_FIELDS = ("out", "resume", "plot", "mode", "chain",
                          "pc_mode", "shard", "save_modes")
 

@@ -5,7 +5,7 @@ App. C.2): finds the lowest ``nev`` eigenpairs of the Hermitian pencil
 (A, M), A x = λ M x, with
 
 * a block of ``m = nev + guard`` vectors (band/block parallelism — the
-  block axis feeds the MXU in every matvec and Gram product, §2.3);
+  block axis turns every matvec and Gram product into a GEMM, §2.3);
 * soft locking by masking (shapes never change, so one XLA program
   serves every k-point and the whole solver can sit under vmap/shard_map);
 * basis stabilization in the Rayleigh–Ritz step following the
@@ -63,15 +63,6 @@ def _flatten_op(op, dof_shape):
     return f
 
 
-def _flatten_op2(op, dof_shape):
-    """Like :func:`_flatten_op` for a fused op returning a PAIR
-    (A x, M x) — e.g. the Pallas fused apply."""
-    def f(X):
-        Ya, Ym = jax.vmap(lambda x: op(x.reshape(dof_shape)))(X)
-        return (Ya.reshape(X.shape[0], -1), Ym.reshape(X.shape[0], -1))
-    return f
-
-
 #: Production Rayleigh–Ritz eigh stop (see ``lobpcg`` ``rr_tol``):
 #: measured ITERATION- AND ACCURACY-NEUTRAL up to 1e-3 on both engines
 #: (benchmarks/exp_rr_tol.py — spectral FCC vs analytic, field
@@ -102,11 +93,10 @@ def _whiten(G, eps):
 def _whiten_chol(G, eps):
     """Cholesky-based whitening — same contract as :func:`_whiten`
     (C with CᴴGC ≈ I on the well-conditioned subspace + good mask),
-    at a fraction of the TPU latency: one n×n Cholesky + triangular
+    at a fraction of the latency: one n×n Cholesky + triangular
     inverse replaces the Jacobi eigendecomposition, halving the
-    serialized small-eigh count per LOBPCG iteration (round-4 item:
-    the measured 26 ms/iteration floor at m=16 was two 48×48 Jacobi
-    eighs back to back; the Ritz eigh is irreducible, this one is not).
+    serialized small-eigh count per LOBPCG iteration (the Ritz eigh is
+    irreducible, this one is not).
 
     δ-regularized: chol(G + δI) with δ = eps·max(diag) matches the
     DSY drop threshold semantics — directions whose Gram eigenvalue
@@ -187,7 +177,6 @@ def _whiten_chol(G, eps):
 def lobpcg(A: Callable, M: Optional[Callable], X0: jax.Array, nev: int,
            maxiter: int = 200, tol: float = 1e-6,
            precond: Optional[Callable] = None,
-           AM: Optional[Callable] = None,
            scale_floor: float = 3e-2,
            kernel_project: Optional[Callable] = None,
            rr_method: str = "chol",
@@ -225,10 +214,6 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: jax.Array, nev: int,
 
     Af = _flatten_op(A, dof_shape)
     Mf = _flatten_op(M, dof_shape) if M is not None else (lambda X: X)
-    # Fused (A x, M x) operator (e.g. the Pallas kernel computes both in
-    # one pass); falls back to separate applies when not provided.
-    AMf = (_flatten_op2(AM, dof_shape) if AM is not None
-           else (lambda X: (Af(X), Mf(X))))
     Pf = _flatten_op(precond, dof_shape) if precond is not None else None
     # Exact-nullspace deflation hook: ``kernel_project(x)`` returns the
     # KERNEL COMPONENT of x (e.g. the (∇+ik)∇φ component for curl-curl).
@@ -300,7 +285,7 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: jax.Array, nev: int,
         W = W * mask
         P, AP, MP = c.P * mask, c.AP * mask, c.MP * mask
 
-        AW, MW = AMf(W)
+        AW, MW = Af(W), Mf(W)
         # Normalize W and P rows to unit M-norm: keeps the S-basis Gram
         # well-scaled near convergence (else tiny-residual directions fall
         # below the whitening drop threshold and progress stalls).
@@ -327,7 +312,7 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: jax.Array, nev: int,
         H = _hermitize(jnp.conj(C.T) @ gram(S, AS) @ C)
         # Dropped directions: push their Ritz values above the spectrum,
         # but only moderately — a Gershgorin bound keeps the matrix scale
-        # sane (TPU f32 eigh loses all accuracy on wildly-scaled input).
+        # sane (f32 eigh solvers lose accuracy on wildly-scaled input).
         gersh = jnp.max(jnp.sum(jnp.abs(H), axis=1))
         big = 2.0 * gersh + jnp.asarray(1.0, rdtype)
         H = H + jnp.diag(jnp.logical_not(good).astype(rdtype) * big)
@@ -401,8 +386,8 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: jax.Array, nev: int,
         return jnp.logical_and(c.it < maxiter, jnp.logical_not(c.done))
 
     def seg_body(c: _Carry):
-        AXn, MXn = AMf(c.X)
-        APn, MPn = AMf(c.P)
+        AXn, MXn = Af(c.X), Mf(c.X)
+        APn, MPn = Af(c.P), Mf(c.P)
         c = c._replace(AX=AXn, MX=MXn, AP=APn, MP=MPn)
         it0 = c.it
 
@@ -458,7 +443,7 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: jax.Array, nev: int,
     Xout = c.X[order]
     # If unhealthy rows land inside the nev window (more dropped rows
     # than guard vectors) the inf sentinels must not leak into caller
-    # outputs (JSON/band tables — ADVICE r2 #5): clamp eigenvalues to
+    # outputs (JSON/band tables): clamp eigenvalues to
     # the largest healthy value and residuals to a large finite number;
     # ``converged`` stays False for them, which is the detectable signal.
     finite = jnp.isfinite(lam)
@@ -469,7 +454,7 @@ def lobpcg(A: Callable, M: Optional[Callable], X0: jax.Array, nev: int,
     # jnp.minimum propagates NaN, so a diverged solve (NaN lam on a
     # healthy row ⇒ NaN rel) needs the where form to land at the finite
     # sentinel too — converged=False stays the failure signal
-    # (ADVICE r3 #3).
+    #.
     rel = jnp.where(jnp.isfinite(rel),
                     jnp.minimum(rel, jnp.asarray(1e6, rdtype)),
                     jnp.asarray(1e6, rdtype))

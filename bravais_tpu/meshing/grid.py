@@ -6,7 +6,8 @@ mesh plus ``CreatePeriodicVertexMapping``, the primitive *parallelepiped*
 spanned by a_1..a_d is meshed by a logically-rectangular n_1 x .. x n_d
 grid, periodic by index arithmetic. Every element shares ONE affine
 Jacobian, so the whole geometry reduces to a handful of constant d x d
-matrices — the key structural win for the TPU rebuild (SURVEY.md §7.0).
+matrices — the key structural win for the accelerator rebuild
+(SURVEY.md §7.0).
 
 Wigner–Seitz cells (the reference's ``GetWignerSeitzMesh`` option) are
 deliberately NOT meshed: any primitive cell tiles the lattice, and the

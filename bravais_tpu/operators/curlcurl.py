@@ -1,7 +1,7 @@
 """Matrix-free Bloch Maxwell curl-curl operator on tensor Nédélec —
 QUASI-PERIODIC formulation.
 
-SURVEY.md App. B.2 (TPU equivalent of the reference's Maxwell assembly,
+SURVEY.md App. B.2 (the JAX equivalent of the reference's Maxwell assembly,
 §2.1 #4). The Bloch problem is realized the way the reference's MFEM
 stack realizes it (phased periodic dof identification, §3.2) rather
 than by shifting the operator: fields satisfy u(x + a_i) = e^{i k·a_i}
@@ -240,67 +240,6 @@ class BlochCurlCurl:
             "rs,s...->r...", jnp.asarray(self.Ginv), uhat)
         return self._scatter_stacked(vmt(g, stk["val"]), ph)
 
-    def supports_fused_am(self) -> bool:
-        """Fused Pallas (A, M) on the TPU backend in f32 (Mosaic kernel;
-        CPU tests use interpret mode). BRAVAIS_DISABLE_PALLAS=1 disables."""
-        import os
-        import jax as _j
-        return (self.dtype == jnp.complex64
-                and not os.environ.get("BRAVAIS_DISABLE_PALLAS")
-                and _j.default_backend() not in ("cpu",))
-
-    def apply_AM_pallas(self, u: jax.Array, k: jax.Array,
-                        interpret: bool = False):
-        """(A(k) u, M u) in ONE fused Pallas kernel over element blocks
-        (operators/pallas/nd_apply.py — the Nédélec half of the App. B.4
-        hot kernel, SURVEY.md §7.1 step 9). The quasi-periodic
-        gather/scatter (where ALL k-dependence lives) stays in XLA."""
-        from bravais_tpu.operators.pallas.nd_apply import \
-            nedelec_block_apply
-        sp = self.space
-        u = u.astype(self.dtype)
-        ph = self.phases(k)
-        ue = self._gather_stacked(u, ph)      # (3, n1,l, n2,l, n3,l)
-        ue_f = ue.transpose(0, 2, 4, 6, 1, 3, 5).reshape(
-            3 * (sp.p + 1) ** 3, -1)
-        if not hasattr(self, "_nd_pallas_const"):
-            qshape = tuple(x for n in sp.grid.shape for x in (n, sp.q))
-            perm = [1, 3, 5, 0, 2, 4]
-            wq64 = np.asarray(sp.quad_weight(), np.float64)
-
-            def plane(coef_q):
-                full = np.broadcast_to(np.asarray(coef_q, np.float64)
-                                       * wq64, qshape)
-                return np.ascontiguousarray(
-                    full.transpose(perm).reshape(
-                        sp.q ** 3, -1)).astype(np.float32)
-
-            def embed(T):
-                return np.pad(np.asarray(T, np.float64), ((0, 0), (0, 1)))
-
-            self._nd_pallas_const = dict(
-                muw=plane(self._mu_inv_q64), epsw=plane(self._eps_q64),
-                Bc=sp.closed.B, Dc=sp.closed.D,
-                Bo=embed(sp.open.B), Do=embed(sp.open.D))
-        c = self._nd_pallas_const
-        yr, yi, mr, mi = nedelec_block_apply(
-            jnp.real(ue_f).astype(jnp.float32),
-            jnp.imag(ue_f).astype(jnp.float32),
-            jnp.asarray(c["muw"]), jnp.asarray(c["epsw"]),
-            Bc=c["Bc"], Dc=c["Dc"], Bo=c["Bo"], Do=c["Do"],
-            J=self.J.tolist(), Ginv=self.Ginv.tolist(),
-            detJ=self.detJs, interpret=interpret)
-        nl = sp.p + 1
-        shp = (3,) + (nl,) * 3 + tuple(sp.grid.shape)
-
-        def unpack(re, im):
-            g = (re + 1j * im).astype(self.dtype).reshape(shp)
-            return g.transpose(0, 4, 1, 5, 2, 6, 3)
-
-        y = self._scatter_stacked(unpack(yr, yi), ph)
-        m = self._scatter_stacked(unpack(mr, mi), ph)
-        return y, m
-
     def apply_A_ref(self, u: jax.Array, k: jax.Array) -> jax.Array:
         """Reference (unstacked) einsum implementation of A(k) u — kept
         for cross-checking the stacked fast path."""
@@ -491,7 +430,7 @@ class BlochCurlCurl:
 
     def gradient_component_np(self, u, k, cg_iters: int = 12) -> np.ndarray:
         """f64 host P u = G L⁻¹ Gᴴ M u — the refine-stage leakage
-        cleanup (ADVICE r1 #2): exact fast-diagonal solve when ε is
+        cleanup: exact fast-diagonal solve when ε is
         element-invariant, else fd-preconditioned CG on the true L.
         ``u`` may have a leading block axis (m, 3, N₁, N₂, N₃)."""
         k = np.asarray(k, np.float64)
@@ -880,18 +819,8 @@ class BlochCurlCurl:
         minv = self.fastdiag().solver([("A", 1.0), ("M", s_)], k)
         sA = jnp.asarray(s_, self.rdtype)
 
-        if self.supports_fused_am():
-            # One fused Pallas pass gives (A x, M x) together — the
-            # shifted apply inside the inner PCG is the hottest op of
-            # the varying-ε production path (inner_iters × per LOBPCG
-            # iteration), and the fused kernel is already the
-            # production AM hook of that same path.
-            def apply(x):
-                ax, mx = self.apply_AM_pallas(x, k)
-                return ax + sA * mx
-        else:
-            def apply(x):
-                return self.apply_A(x, k) + sA * self.apply_M(x, k)
+        def apply(x):
+            return self.apply_A(x, k) + sA * self.apply_M(x, k)
 
         def pc(R):
             x = jnp.zeros_like(R)
@@ -932,10 +861,10 @@ class BlochCurlCurl:
         QPLaplace(h1, α=ε).apply_A == apply_GkH∘apply_M∘apply_Gk to
         machine precision (gated by
         tests/test_gmg.py::test_qp_laplace_is_exactly_Lk; measured
-        4e-16 relative at n=4 p=3). The twin's apply is ONE fused
-        Pallas element kernel on TPU (~30 XLA ops) versus the ~300
-        tiny ops of the three-operator chain — the round-5 fix for
-        the op-issue-latency-bound Chebyshev kernel projector
+        4e-16 relative at n=4 p=3). The twin's apply is one
+        sum-factorized element apply (~30 XLA ops) versus the ~300
+        tiny ops of the three-operator chain — the fix for the
+        op-issue-latency-bound Chebyshev kernel projector
         (docs/STATUS.md §0d-throughput)."""
         if not hasattr(self, "_qp_L"):
             from bravais_tpu.operators.qplaplace import QPLaplace
@@ -1092,7 +1021,7 @@ class BlochCurlCurl:
         unconditionally non-amplifying, it needs no inner products
         (no f32 recursion instability — the measured CG knife-edge:
         16 steps → 20 LOBPCG iterations, 17 → 67 at ε=30), and it is
-        reduction-free (TPU-friendly)."""
+        reduction-free (no serializing reductions)."""
         a, b = self.cheby_bounds()
         if steps is None:
             steps = self.cheby_steps()
@@ -1213,7 +1142,7 @@ class BlochCurlCurl:
             # operator I − L̃⁻¹L has eigenvalues up to contrast−1, so
             # per-iteration use AMPLIFIES the kernel (the measured
             # round-2 150-iteration stall at ε=13). Fail loudly instead
-            # of silently re-opening that regression (ADVICE r3 #1).
+            # of silently re-opening that regression.
             raise ValueError(
                 "deflation='project' requires element-translation-"
                 "invariant coefficients (its direct fast-diagonal "
@@ -1295,8 +1224,6 @@ class BlochCurlCurl:
                 pc_proj = ((lambda R: (lambda z: z - proj(z))(pc(R)))
                            if pc is not None else
                            (lambda R: R - proj(R)))
-                AM = ((lambda x: op.apply_AM_pallas(x, k))
-                      if op.supports_fused_am() else None)
                 # Per-iteration X/P deflation needs a projector that
                 # CONTRACTS the kernel: the exact fast-diagonal solve
                 # ("project", element-invariant ε) or true-L PCG
@@ -1320,7 +1247,7 @@ class BlochCurlCurl:
                               lambda x: op.apply_M(x, k), X0p,
                               nev, maxiter=maxiter, tol=tol,
                               precond=pc_proj, scale_floor=sfloor,
-                              AM=AM, kernel_project=kproj,
+                              kernel_project=kproj,
                               rr_tol=rr)
 
             if sigma is not None:
@@ -1351,7 +1278,7 @@ class BlochCurlCurl:
                                 pc_rep: str = "inv",
                                 rr_tol: float | None = None) -> Callable:
         """LOBPCG run ENTIRELY in the twisted-DFT block basis — the
-        maximum-MXU path for element-translation-invariant coefficients
+        dense batched-GEMM path for element-translation-invariant coefficients
         (every empty-lattice config, incl. the headline benchmark).
 
         One transform in, one transform out; every per-iteration
@@ -1382,8 +1309,7 @@ class BlochCurlCurl:
               ~29 GFLOP at the n=8 p=4 headline) at the price of one
               extra skinny GEMM per LOBPCG iteration (~2.4 GFLOP at
               m=16) — a net win whenever iters/k stays below ~10.
-            * "inv" (default until the factor variant is
-              TPU-measured) — the explicit inverse YcᴴYc; one GEMM
+            * "inv" (default) — the explicit inverse YcᴴYc; one GEMM
               per apply.
 
             Exposed separately so chain launches can build it ONCE per
@@ -1445,7 +1371,7 @@ class BlochCurlCurl:
                 # and a strict '<' against 2·delta could never fire —
                 # solve_triangular would then divide by a ~0 Cholesky
                 # diagonal instead of zeroing the direction (only
-                # reachable at un-nudged exact-Γ; ADVICE r3 #4).
+                # reachable at un-nudged exact-Γ).
                 dfloor = jnp.maximum(delta, jnp.asarray(
                     jnp.finfo(self.rdtype).tiny, self.rdtype))
                 tiny = (dg * dg) <= (2.0 * dfloor)[:, None]
@@ -1455,9 +1381,8 @@ class BlochCurlCurl:
                 # Cholesky-QR projector: W = chol(M̂)ᴴ Ĝ = QR gives
                 # L = ĜᴴM̂Ĝ = RᴴR, so L⁻¹ = R⁻¹R⁻ᴴ via two batched
                 # triangular solves. κ(R) = √κ(L) — numerically on par
-                # with the spectral pseudo-inverse, and ~6× cheaper on
-                # TPU than the batched Jacobi eigh of L (measured 66 ms
-                # vs 410 ms setup at n=8 p=4). Rank drop at θ→0 (the
+                # with the spectral pseudo-inverse, and cheaper than the
+                # batched Jacobi eigh of L. Rank drop at θ→0 (the
                 # exact-Γ harmonic point) guarded by pushing tiny R
                 # diagonals to a huge value, which zeroes those
                 # directions in the solve — the pinv truncation.
@@ -1538,9 +1463,9 @@ class BlochCurlCurl:
                 TM = fd.blocks([("M", 1.0)], k)
                 TG = fd.blocks([("G", 1.0)], k)      # (B, Dnd, Dh1)
                 TGH = jnp.conj(jnp.swapaxes(TG, -1, -2))
-                # (A+sM)⁻¹ via Cholesky (HPD): half the LU-inverse cost
-                # on TPU (measured 49 vs 110 ms at n=8 p=4);
-                # preconditioner-level accuracy is all that's needed.
+                # (A+sM)⁻¹ via Cholesky (HPD): half the LU-inverse
+                # flops; preconditioner-level accuracy is all that's
+                # needed.
                 # ``pc``: a prebuilt (possibly neighboring-k) block
                 # inverse from build_pc.
                 Tpc = build_pc(op, k, (TA, TM)) if pc is None else pc

@@ -1,6 +1,6 @@
 """Fast block-diagonalization of quasi-periodic operators (twisted DFT).
 
-The TPU-native replacement for hypre-AMS as the *outer* Maxwell
+The accelerator-native replacement for hypre-AMS as the *outer* Maxwell
 preconditioner (SURVEY.md §2.2 #12) and for the inner deflation solve
 (App. C.3), exploiting the structured periodic grid more aggressively
 than multigrid can:
@@ -23,7 +23,7 @@ discrete Fourier transform  û[m] = Σ_e e^{-i θ_m·e} u[e], with
 The S_δ are k-independent and real; they are extracted ONCE on the host
 (f64 NumPy twins) by probing unit element-dof fields at an interior
 element. Per k-point everything is dense batched linear algebra — DFT
-matmuls, block assembly, batched inverse, batched matvec — i.e. MXU
+matmuls, block assembly, batched inverse, batched matvec — i.e. GEMM
 work, all inside one jitted program with k traced.
 
 Uses:
@@ -34,7 +34,7 @@ Uses:
   still a spectrally-equivalent preconditioner (contrast-bounded).
 * ``solver([("L",1)], k, refine=1)`` → direct deflation solve,
   replacing the QPGMG V-cycles (exact projector → the f32-at-scale
-  robustness fix, VERDICT round 1 items 2–3).
+  robustness fix).
 
 Validity requires n_i ≥ 3 (stencil extraction needs an interior
 element) — always true for production grids.

@@ -63,72 +63,24 @@ class QPLaplace:
             self.rdtype)
         return jnp.exp(1j * ka).astype(self.dtype)
 
-    def _use_pallas(self) -> bool:
-        import os
-        return (self.dtype == jnp.complex64
-                and not os.environ.get("BRAVAIS_DISABLE_PALLAS")
-                and jax.default_backend() not in ("cpu",))
-
-    def apply_A(self, u: jax.Array, k: jax.Array,
-                interpret: bool = False, force_pallas: bool = False
-                ) -> jax.Array:
+    def apply_A(self, u: jax.Array, k: jax.Array) -> jax.Array:
         sp = self.space
         d = sp.dim
         u = u.astype(self.dtype)
         ph = self.phases(k)
         ue = tensor.gather_qp(u, sp.grid.shape, (sp.p,) * d, (True,) * d,
                               ph)
-        if force_pallas or self._use_pallas():
-            # Same fused element kernel as the Bloch-shifted H1 operator
-            # with k=0 inside (the Bloch phases live in the qp gather
-            # OUTSIDE the kernel); stiffness and mass come back together
-            # so the mass shift is free.
-            from bravais_tpu.operators.pallas.h1_apply import \
-                helmholtz_block_apply
-            perm = [2 * i for i in range(d)] + [2 * i + 1
-                                                for i in range(d)]
-            ne = sp.grid.n_elements
-            ue_fm = ue.transpose(perm).reshape(ne, -1).T
-            if not hasattr(self, "_pallas_const"):
-                self._pallas_const = dict(
-                    alpha_e=np.ascontiguousarray(
-                        self._alpha_q64.transpose(perm).reshape(ne, -1).T
-                    ).astype(np.float32),
-                    beta_e=np.ascontiguousarray(
-                        self._beta_q64.transpose(perm).reshape(ne, -1).T
-                    ).astype(np.float32),
-                    wq=np.asarray(sp.quad_weight(),
-                                  np.float64).ravel().astype(np.float32))
-            c = self._pallas_const
-            yr, yi, mr, mi = helmholtz_block_apply(
-                jnp.real(ue_fm).astype(jnp.float32),
-                jnp.imag(ue_fm).astype(jnp.float32),
-                jnp.asarray(c["alpha_e"]), jnp.asarray(c["beta_e"]),
-                jnp.zeros((d,), jnp.float32),
-                B=sp.basis.B.astype(np.float32),
-                D=sp.basis.D.astype(np.float32),
-                JinvT=sp.grid.Jinv.T.tolist(),
-                Jinv=sp.grid.Jinv.tolist(),
-                wq=c["wq"], interpret=interpret)
-            y = (yr + 1j * yi) + self.shift * (mr + 1j * mi)
-            l = sp.p + 1
-            y = y.T.reshape(tuple(sp.grid.shape) + (l,) * d)
-            perm_inv = []
-            for i in range(d):
-                perm_inv.extend([i, d + i])
-            y = y.transpose(perm_inv)
-        else:
-            ghat = jnp.stack([tensor.contract(ue, self._tabs[r])
-                              for r in range(d)])
-            z = (self.alpha_q * self.wq) * jnp.einsum(
-                "rs,s...->r...", jnp.asarray(self.Ginv), ghat)
-            y = 0.0
-            for r in range(d):
-                y = y + tensor.contract_t(z[r], self._tabs[r])
-            if self.shift != 0.0:
-                uq = tensor.contract(ue, [self.B] * d)
-                y = y + self.shift * tensor.contract_t(
-                    self.beta_q * self.wq * uq, [self.B] * d)
+        ghat = jnp.stack([tensor.contract(ue, self._tabs[r])
+                          for r in range(d)])
+        z = (self.alpha_q * self.wq) * jnp.einsum(
+            "rs,s...->r...", jnp.asarray(self.Ginv), ghat)
+        y = 0.0
+        for r in range(d):
+            y = y + tensor.contract_t(z[r], self._tabs[r])
+        if self.shift != 0.0:
+            uq = tensor.contract(ue, [self.B] * d)
+            y = y + self.shift * tensor.contract_t(
+                self.beta_q * self.wq * uq, [self.B] * d)
         return tensor.scatter_add_qp(y, sp.grid.shape, (sp.p,) * d,
                                      (True,) * d, ph)
 

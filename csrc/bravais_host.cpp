@@ -5,7 +5,7 @@
 // structured-grid dof indexing. This mirrors the role of the
 // reference's C++ assembly layer (SURVEY.md §2.1 #3/#4, §2.2 #8) on the
 // host side of the rebuild; the performance-bearing device path is
-// XLA/Pallas (native TPU code). Exposed through a plain C API consumed
+// XLA on the GPU. Exposed through a plain C API consumed
 // via ctypes (bravais_tpu/utils/native.py).
 //
 // Conventions match the Python oracles exactly:

@@ -1,6 +1,5 @@
 """Crash-safe checkpointing + combined warm/sharded sweep regime
-(SURVEY.md §5 checkpoint/resume; App. C.5 combined regime; VERDICT r1
-items 5-6)."""
+(SURVEY.md §5 checkpoint/resume; App. C.5 combined regime)."""
 
 import json
 import os
@@ -88,7 +87,7 @@ def test_warm_sharded_matches_warm():
 
 
 def test_cli_kill9_then_resume(tmp_path):
-    """The VERDICT r1 item-6 acceptance test: SIGKILL a sweep mid-run,
+    """The crash-safety acceptance test: SIGKILL a sweep mid-run,
     rerun with --resume, and only unfinished k-points recompute."""
     out = tmp_path / "run"
     args = [sys.executable, "-m", "bravais_tpu.cli.bands_app",

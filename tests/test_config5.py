@@ -2,7 +2,7 @@
 MATRIX-FREE sweep through the production batched path, k axis sharded
 over the 8-device virtual mesh, validated against the analytic oracle —
 the CPU twin of `benchmarks/config5_all14.py` (which runs all 14
-families on the TPU)."""
+families on the GPU)."""
 
 import numpy as np
 import pytest
@@ -13,8 +13,8 @@ from benchmarks.config5_all14 import PARAMS, run_one
 @pytest.mark.parametrize("name", ["FCC", "TRI"])  # cubic + most oblique
 @pytest.mark.parametrize("engine", ["field", "spectral"])
 def test_config5_p4_both_engines(name, engine):
-    # n=4 p=4 discretization floor is ~7e-6 (measured); the TPU run at
-    # the production n=6 sits well below 1e-6.
+    # n=4 p=4 discretization floor is ~7e-6 (measured); the production
+    # n=6 sits well below 1e-6.
     r = run_one(name, n=4, p=4, nev=4, tol=1e-8, maxiter=300,
                 engine=engine)
     assert r["max_rel_err"] < 2e-5, r

@@ -61,8 +61,7 @@ def test_nedelec_eigenvalue_convergence_order():
 
 @pytest.mark.slow
 def test_maxwell_dielectric_sphere_convergence():
-    """Quantitative accuracy gate for dielectric Maxwell (VERDICT r2
-    item 4 / SURVEY §4.2 item 3): ε=13 sphere (r=0.25a, CUB) lowest
+    """Quantitative accuracy gate for dielectric Maxwell: ε=13 sphere (r=0.25a, CUB) lowest
     band at X under n-refinement with subcell-averaged ε, f64.
 
     Measured sequence (p=2, subcell=3): λ₁ = 6.3710 (n=3), 6.5736

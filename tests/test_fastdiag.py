@@ -4,8 +4,7 @@ Oracle strategy (SURVEY.md §4.2): the factorized matvec must reproduce
 the matrix-free applies to roundoff at arbitrary k; the block solver
 must invert exactly (f64); the resulting deflation projector must be
 idempotent and annihilate gradients; and the (A+sM)⁻¹ preconditioner
-must cut LOBPCG iterations hard vs Jacobi (the VERDICT round-1 item-2
-acceptance test, scaled down).
+must cut LOBPCG iterations hard vs Jacobi (scaled down).
 """
 
 import jax.numpy as jnp

@@ -2,7 +2,7 @@
 
 ``dryrun_multichip`` must pass in the DRIVER's environment, where only
 one real device may be visible: it has to self-provision the virtual
-CPU mesh (VERDICT round 1, item 1).
+CPU mesh.
 """
 
 import os

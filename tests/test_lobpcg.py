@@ -77,7 +77,7 @@ def test_lobpcg_with_jacobi_precond():
 
 
 def test_lobpcg_f32_accuracy():
-    """complex64 path — the TPU dtype (precision plan SURVEY.md §7.0)."""
+    """complex64 path — the device dtype (precision plan SURVEY.md §7.0)."""
     n, nev, m = 150, 5, 9
     H = _rand_hermitian(n, 6) + np.diag(np.linspace(0, 60, n))
     exact = scipy.linalg.eigh(H, eigvals_only=True)[:nev]
@@ -111,8 +111,8 @@ def test_lobpcg_vmapped():
 @pytest.mark.parametrize("kfrac", [(0.0, 0.0), (0.31, 0.17)])
 def test_e2e_empty_lattice_square(kfrac):
     """BASELINE config 1: 2D square lattice, H1, empty-lattice bands,
-    eigenvalues vs λ = |k+G|² to 1e-6 relative (f64 CPU here; the TPU
-    f32 twin is exercised by bench/__graft_entry__)."""
+    eigenvalues vs λ = |k+G|² to 1e-6 relative (f64 CPU here; the f32
+    twin is exercised by bench/__graft_entry__)."""
     lat = make_lattice("SQR")
     sp = H1Space.make(PeriodicGrid.make(lat, 12), p=3)
     op = BlochHelmholtz(sp, dtype=jnp.complex128)
@@ -151,7 +151,7 @@ def test_lobpcg_dropped_rows_stay_finite():
     """When the block is wider than the space (rank-deficient by
     construction, so whitening-dropped rows land inside the nev
     window), the returned eigenvalues/residuals must be FINITE with
-    converged=False marking the degenerate rows (ADVICE r2 #5) —
+    converged=False marking the degenerate rows —
     inf must not leak into band tables / JSON output."""
     import jax.numpy as jnp
     from bravais_tpu.eigen.lobpcg import lobpcg

@@ -264,8 +264,7 @@ def test_dielectric_f32_refine_certified(eps_in):
 @pytest.mark.slow
 def test_dielectric_contrast_sweep_iterations():
     """Preconditioner/projector quality is contrast-BOUNDED, measured
-    (VERDICT r2: the 'spectrally equivalent, contrast-bounded κ' claim
-    had no quantitative gate): LOBPCG iterations at ε ∈ {2, 5, 13, 30}.
+   : LOBPCG iterations at ε ∈ {2, 5, 13, 30}.
     Measured round 3 (project-cheby): 19/13/15 at ε=2/5/13 to residual
     1e-5. At ε=30 the f32 apply-noise floor at this size sits at
     ~2e-5 (every preconditioner variant stalls there with CORRECT

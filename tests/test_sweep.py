@@ -217,8 +217,8 @@ def test_warm_chain_spectral_pc_reuse():
 
 def test_warm_chain_batched_pc_matches_per_k():
     """precond='batched' builds every chain k's EXACT preconditioner in
-    one vmapped batched-Cholesky call before the scan (round-4c: the
-    per-k pc build is the largest latency-bound setup term on TPU).
+    one vmapped batched-Cholesky call before the scan (the per-k pc
+    build is a latency-bound setup term).
     Unlike 'chain-mid' staleness this changes nothing numerically: the
     iteration path and eigenvalues must match the per-k build exactly."""
     import jax.numpy as jnp
@@ -326,8 +326,7 @@ def test_spectral_pc_rep_factor_matches_inv():
     """pc_rep='factor' (keep the triangular factor of A+sM; two
     triangular solves per preconditioner application) vs the default
     explicit block inverse: a representation change only — eigenvalues
-    must match. Gates the queued warm_pcfactor TPU A/B, which would
-    otherwise be this path's first execution."""
+    must match."""
     from bravais_tpu.operators.curlcurl import BlochCurlCurl
     from bravais_tpu.spaces.nedelec import NedelecSpace
 
